@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from nbody_tpu.ops import f64emu as fe
+from nbody.ops import f64emu as fe
 
 
 def rand_f64(rng, n, max_exp=300):

@@ -1,11 +1,10 @@
-"""f32 error-vs-horizon study: plain vs Kahan-compensated accumulation
-(VERDICT round-2 item 7).
+"""f32 error-vs-horizon study: plain vs Kahan-compensated accumulation.
 
 Marches a graded scene through simulate() at precision 'f32' with and
 without compensated q/v accumulation, against the double-double ('dd')
 trajectory as truth, sampling the relative RMS position error at a ladder
 of horizons. Writes ONE JSON record (results/f32_horizon.json) and prints
-a table; results/F32_HORIZON.md records the conclusions.
+a table.
 
 Usage:  python scripts/study_f32_horizon.py [--case b20] [--steps 200000]
 """
@@ -30,8 +29,8 @@ def main():
     ap.add_argument("--out", default="results/f32_horizon.json")
     args = ap.parse_args()
 
-    from nbody_tpu import read_input
-    from nbody_tpu.simulate import simulate
+    from nbody import read_input
+    from nbody.simulate import simulate
 
     scene = read_input(os.path.join(TESTCASE_DIR, f"{args.case}.in"))
     # sample at a horizon ladder: on_chunk fires at multiples of `chunk`

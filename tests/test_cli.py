@@ -13,7 +13,7 @@ def _run(args, **kw):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("PYTHONPATH", None)
-    return subprocess.run([sys.executable, "-m", "nbody_tpu", *args],
+    return subprocess.run([sys.executable, "-m", "nbody", *args],
                           capture_output=True, text=True, cwd=REPO, env=env,
                           **kw)
 
@@ -67,7 +67,7 @@ def test_cli_mesh_routes_sharded(tmp_path):
                         + " --xla_force_host_platform_device_count=8")
     env.pop("PYTHONPATH", None)
     r = subprocess.run(
-        [sys.executable, "-m", "nbody_tpu", B20, out, "--n-steps", "50",
+        [sys.executable, "-m", "nbody", B20, out, "--n-steps", "50",
          "--mesh", "scen=2,body=-1", "--tile", "4"],
         capture_output=True, text=True, cwd=REPO, env=env)
     assert r.returncode == 0, r.stderr
@@ -82,7 +82,7 @@ def test_cli_mesh_routes_sharded(tmp_path):
 
 
 def test_cli_mesh_spec_errors():
-    from nbody_tpu.cli import parse_mesh_spec
+    from nbody.cli import parse_mesh_spec
     import pytest
     assert parse_mesh_spec("scen=2,body=4") == {"scen": 2, "body": 4}
     assert parse_mesh_spec("body=8") == {"body": 8, "scen": 1}
@@ -97,7 +97,7 @@ def test_cli_mesh_spec_errors():
 def test_cli_rejects_nonpositive_tile(tmp_path):
     import pytest
 
-    from nbody_tpu.cli import main
+    from nbody.cli import main
     with pytest.raises(SystemExit, match="--tile must be"):
         main([B20, str(tmp_path / "o.out"), "--tile", "0",
               "--mesh", "scen=1,body=2", "--precision", "f64",
@@ -109,7 +109,7 @@ def test_cli_rejects_oversized_tile(tmp_path):
     # the scene to 8192 bodies -- refused with a friendly message.
     import pytest
 
-    from nbody_tpu.cli import main
+    from nbody.cli import main
     with pytest.raises(SystemExit, match="would pad the scene"):
         main([B20, str(tmp_path / "o.out"), "--tile", "4096",
               "--mesh", "scen=1,body=2", "--precision", "f64",

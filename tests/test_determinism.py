@@ -10,9 +10,9 @@ import os
 
 import numpy as np
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.models.direct_sum import run_problems_12, run_problem_3
-from nbody_tpu.physics import oscillation_table
+from nbody import SimConfig, read_input
+from nbody.models.direct_sum import run_problems_12, run_problem_3
+from nbody.physics import oscillation_table
 
 TESTCASE_DIR = "/root/reference/testcases"
 
@@ -56,7 +56,7 @@ def test_p3_sequential_equals_batched():
     """The dominance-pruned sequential strategy must agree with the batched
     strategy on the winner (and on the saved-flag of every scenario it
     evaluates before stopping)."""
-    from nbody_tpu.engine import select_winner
+    from nbody.engine import select_winner
 
     scene = read_input(os.path.join(TESTCASE_DIR, "b20.in"))
     cfg = dataclasses.replace(SimConfig(), n_steps=600, chunk_steps=100)
@@ -72,7 +72,7 @@ def test_dd_pipeline_on_cpu_equals_f64():
     """The dd pipeline (rescale + dsqrt) run on the CPU backend must give
     bit-identical answers to the plain f64 path: power-of-2 rescaling is an
     exact transform and both paths then use the same IEEE arithmetic."""
-    from nbody_tpu.engine import solve_scene
+    from nbody.engine import solve_scene
 
     scene = read_input(os.path.join(TESTCASE_DIR, "b30.in"))
     cfg = dataclasses.replace(SimConfig(), n_steps=500)

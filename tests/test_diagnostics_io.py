@@ -3,11 +3,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from nbody_tpu.io import read_input, SceneFormatError
-from nbody_tpu.simulate import simulate
-from nbody_tpu.utils.diagnostics import (total_energy, total_momentum,
+from nbody.io import read_input, SceneFormatError
+from nbody.simulate import simulate
+from nbody.utils.diagnostics import (total_energy, total_momentum,
                                          kinetic_energy)
-from nbody_tpu.models.plummer import plummer_scene
+from nbody.models.plummer import plummer_scene
 
 
 def _write(tmp_path, text):
@@ -43,7 +43,7 @@ def test_momentum_conserved_exactly_enough():
     """Pairwise forces are antisymmetric; total momentum of an isolated
     system should be conserved to fp roundoff over a short march."""
     import dataclasses
-    from nbody_tpu.io import Scene
+    from nbody.io import Scene
 
     q, v, m = plummer_scene(64, seed=3)
     scene = Scene(n=64, planet=0, asteroid=1, q=q, v=v, m=m,
@@ -58,7 +58,7 @@ def test_momentum_conserved_exactly_enough():
 
 def test_energy_bounded_on_plummer():
     import dataclasses
-    from nbody_tpu.io import Scene
+    from nbody.io import Scene
 
     q, v, m = plummer_scene(64, seed=4)
     scene = Scene(n=64, planet=0, asteroid=1, q=q, v=v, m=m,
@@ -73,9 +73,9 @@ def test_energy_bounded_on_plummer():
 
 
 def test_leapfrog_conserves_energy_better_than_euler():
-    from nbody_tpu.io import Scene
-    from nbody_tpu.utils.diagnostics import total_energy
-    from nbody_tpu.simulate import simulate
+    from nbody.io import Scene
+    from nbody.utils.diagnostics import total_energy
+    from nbody.simulate import simulate
     import jax.numpy as jnp
 
     q, v, m = plummer_scene(48, seed=7)

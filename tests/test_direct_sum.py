@@ -10,10 +10,10 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.engine import solve_scene
-from nbody_tpu.models.direct_sum import run_problems_12, run_problem_3
-from nbody_tpu.physics import oscillation_table
+from nbody import SimConfig, read_input
+from nbody.engine import solve_scene
+from nbody.models.direct_sum import run_problems_12, run_problem_3
+from nbody.physics import oscillation_table
 
 from oracle_np import run_steps
 
@@ -166,7 +166,7 @@ def test_blocked_force_kernel_matches_unblocked():
     the O(n^2)-materializing kernel: same physics, different (still
     deterministic) summation order -> near-ulp agreement, including a
     block size that does not divide n."""
-    from nbody_tpu.ops.forces import pairwise_accel, pairwise_accel_blocked
+    from nbody.ops.forces import pairwise_accel, pairwise_accel_blocked
 
     rng = np.random.RandomState(11)
     n = 37
@@ -187,10 +187,10 @@ def test_p2_early_exit_bitexact():
     order XLA used for the (2, n, 3) batch."""
     import dataclasses
 
-    from nbody_tpu import SimConfig, read_input
-    from nbody_tpu.engine import select_winner
-    from nbody_tpu.models.direct_sum import run_problem_3, run_problems_12
-    from nbody_tpu.physics import oscillation_table
+    from nbody import SimConfig, read_input
+    from nbody.engine import select_winner
+    from nbody.models.direct_sum import run_problem_3, run_problems_12
+    from nbody.physics import oscillation_table
 
     scene = read_input("/root/reference/testcases/b20.in")
     # radius forces a mid-run hit (cf. test_solver_sharded technique);
@@ -223,9 +223,9 @@ def test_p2_early_exit_checkpoint_resume(tmp_path):
     """Preemption AFTER the early-exit switch resumes bit-identically."""
     import dataclasses
 
-    from nbody_tpu import SimConfig, read_input
-    from nbody_tpu.models.direct_sum import run_problems_12
-    from nbody_tpu.physics import oscillation_table
+    from nbody import SimConfig, read_input
+    from nbody.models.direct_sum import run_problems_12
+    from nbody.physics import oscillation_table
 
     scene = read_input("/root/reference/testcases/b20.in")
     cfg = dataclasses.replace(SimConfig(), n_steps=400,

@@ -4,10 +4,9 @@ The e64 path emulates IEEE binary64 exactly (tests/test_f64emu.py), and
 the solver runs the serial spec's op order through it, so a full solve
 must produce BYTE-IDENTICAL answers to the f64 CPU path — not approximate
 agreement. XLA:CPU executes the giant fused softfloat graphs very slowly
-(~ms per pair per step, a register-spill pathology absent on TPU where
-the same kernel hits ~4e9 pairs/s), so this test runs a tiny subset scene
-for a short horizon; the full-length, full-suite validation runs on TPU
-(results/ACCURACY.md).
+(~ms per pair per step, a register-spill pathology of the CPU backend), so
+this test runs a tiny subset scene for a short horizon; on the GPU,
+chip_smoke.py checks e64 byte-identical to the native core.
 """
 
 import dataclasses
@@ -16,9 +15,9 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.engine import solve_scene
-from nbody_tpu.io import format_output
+from nbody import SimConfig, read_input
+from nbody.engine import solve_scene
+from nbody.io import format_output
 
 TESTCASE_DIR = "/root/reference/testcases"
 
@@ -26,7 +25,7 @@ TESTCASE_DIR = "/root/reference/testcases"
 # microseconds each and bit-exact — tests/test_f64emu.py — but the mega-
 # fusion compile + spill-heavy codegen is a CPU-backend pathology). These
 # integration tests are therefore opt-in on CPU; the standing validation
-# is the TPU golden sweep (results/golden_e64_tpu*.json).
+# is chip_smoke.py's e64 check on the GPU.
 slow = pytest.mark.skipif(not os.environ.get("RUN_SLOW"),
                           reason="minutes of XLA:CPU compile; RUN_SLOW=1")
 
@@ -65,8 +64,8 @@ def test_e64_force_kernel_matches_serial_reference():
     native/core.cc:98-110 (j-ascending accumulation): bit-exact."""
     import jax
 
-    from nbody_tpu.ops import f64emu as fe
-    from nbody_tpu.ops.forces import pairwise_accel_e64
+    from nbody.ops import f64emu as fe
+    from nbody.ops.forces import pairwise_accel_e64
 
     rng = np.random.default_rng(3)
     n = 8

@@ -2,7 +2,7 @@
 
 Every op must agree with numpy float64 BIT-FOR-BIT (uint64 view compare) on
 random, adversarial, and special-value inputs — this is the property the
-answer-grade TPU path rests on (the solver runs native/core.cc semantics
+bit-exact e64 path rests on (the solver runs native/core.cc semantics
 through these ops; a single wrong ulp would chaos-amplify over 200001
 steps). The standalone fuzz driver at 200k cases x several seeds measured
 0 mismatches in ~13.6M cases; this file keeps a fast regression subset.
@@ -14,7 +14,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nbody_tpu.ops import f64emu as fe
+from nbody.ops import f64emu as fe
 
 N = 20000
 

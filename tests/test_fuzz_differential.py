@@ -1,7 +1,7 @@
 """Randomized differential fuzz: engine vs the native byte-golden core.
 
 A standing regression net beyond the hand-built edges in
-test_semantics_corners.py (VERDICT r3, hardening): ~100 seeded random
+test_semantics_corners.py: ~100 seeded random
 scenes, short horizons, every scene solved by both the JAX engine
 (precision 'f64', CPU) and the native serial spec (native/core.cc) in the
 same dsqrt dist3 mode. Discrete answers (hit step, winning device) must
@@ -26,10 +26,10 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig
-from nbody_tpu.engine import solve_scene
-from nbody_tpu.io import Scene
-from nbody_tpu.native import solve_exact
+from nbody import SimConfig
+from nbody.engine import solve_scene
+from nbody.io import Scene
+from nbody.native import solve_exact
 
 _HAS_NATIVE = os.path.exists(
     os.path.join(os.path.dirname(__file__), "..", "native",

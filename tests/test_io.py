@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu.io import read_input, format_output, parse_output
+from nbody.io import read_input, format_output, parse_output
 
 TESTCASE_DIR = "/root/reference/testcases"
 
@@ -54,7 +54,7 @@ def test_device_mask():
 def test_parse_output_rejects_malformed():
     import pytest
 
-    from nbody_tpu.io import SceneFormatError
+    from nbody.io import SceneFormatError
     for bad in ("", "1.0\n5", "1.0\n5\n3", "1.0\nx\n3 2.0",
                 "1.0\n5\n3 2.0 extra", "1.0\n5\n3 2.0\n4th line"):
         with pytest.raises(SceneFormatError):

@@ -7,8 +7,8 @@ import subprocess
 
 import pytest
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.engine import solve_scene
+from nbody import SimConfig, read_input
+from nbody.engine import solve_scene
 
 TESTCASE_DIR = "/root/reference/testcases"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,7 +29,7 @@ def test_exact_matches_oracle_binary(tmp_path):
     subprocess.run([os.path.join(REPO, "native", "oracle"),
                     os.path.join(TESTCASE_DIR, "b20.in"), out, "500", "pow"],
                    check=True)
-    from nbody_tpu.io import parse_output, format_output
+    from nbody.io import parse_output, format_output
     with open(out) as f:
         want = f.read()
     assert format_output(*ans.as_tuple()) == want
@@ -40,7 +40,7 @@ def test_exact_honors_config_overrides():
     nbody_solve_cfg): defaults are byte-identical to the legacy entry, and
     a changed planet_radius changes the native answer (no silent fallback
     to the reference's hard-coded params)."""
-    from nbody_tpu.native import solve_exact
+    from nbody.native import solve_exact
 
     scene = read_input(os.path.join(TESTCASE_DIR, "b20.in"))
     cfg = dataclasses.replace(SimConfig(), n_steps=500)

@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig
-from nbody_tpu.engine import solve_scene
+from nbody import SimConfig
+from nbody.engine import solve_scene
 from test_fuzz_differential import _fuzz_scene, _CFG
 
 

@@ -12,10 +12,10 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig
-from nbody_tpu.engine import solve_scene
-from nbody_tpu.io import Scene
-from nbody_tpu.native import solve_exact
+from nbody import SimConfig
+from nbody.engine import solve_scene
+from nbody.io import Scene
+from nbody.native import solve_exact
 
 _HAS_NATIVE = os.path.exists(
     os.path.join(os.path.dirname(__file__), "..", "native",
@@ -139,8 +139,8 @@ def test_arrival_after_hit_cannot_save():
 
 def test_zero_device_scene_all_precisions():
     """No devices: P3 must be skipped cleanly on every precision path,
-    including the rescaled accelerator representations (dd/f32 run here on
-    the CPU backend — same code path as TPU minus the watchdog chunking)."""
+    including the rescaled representations (dd/f32 run here on the CPU
+    backend — the same code path as on the GPU)."""
     q, v, m = _base(n=8, seed=3)
     q[1] = (5.0e8, 0.0, 0.0)
     v[1] = (-1.0e5, 0.0, 0.0)
@@ -256,7 +256,7 @@ def test_select_winner_tie_breaks_by_body_index():
     """Equal costs (same arrival step) break ties by ORIGINAL body index
     (the reference processes scenarios in (arrival, slot) order and keeps
     the first strictly-cheaper winner, hw5.cu:574-585)."""
-    from nbody_tpu.engine import select_winner
+    from nbody.engine import select_winner
 
     q, v, m = _base()
     scene = _scene(q, v, m, device_idx=[5, 3])   # file order: body 5, 3

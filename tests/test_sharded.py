@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from nbody_tpu.parallel import make_mesh, make_sharded_step, simulate_sharded
-from nbody_tpu.ops.forces import pairwise_accel_fast
+from nbody.parallel import make_mesh, make_sharded_step, simulate_sharded
+from nbody.ops.forces import pairwise_accel_fast
 
 G, EPS, DT = 6.674e-11, 1e-3, 60.0
 

@@ -3,9 +3,9 @@ import os
 
 import numpy as np
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.simulate import simulate
-from nbody_tpu.utils.checkpoint import save_checkpoint, load_checkpoint
+from nbody import SimConfig, read_input
+from nbody.simulate import simulate
+from nbody.utils.checkpoint import save_checkpoint, load_checkpoint
 
 from oracle_np import run_steps
 
@@ -71,8 +71,8 @@ def test_simulate_tf3_matches_f64():
 
 
 def test_simulate_leapfrog_tf3_matches_f64():
-    """Leapfrog through the TF3 representation (VERDICT round-2 item 8:
-    the integrator x precision matrix): same 2nd-order trajectory as the
+    """Leapfrog through the TF3 representation (the integrator x
+    precision matrix): same 2nd-order trajectory as the
     f64 leapfrog to far beyond f64 rounding over a short horizon."""
     scene = read_input(os.path.join(TESTCASE_DIR, "b20.in"))
     ref = simulate(scene, n_steps=25, chunk=25, platform="cpu",
@@ -112,8 +112,8 @@ def test_simulate_e64_bit_identical_to_f64():
     state must equal the f64 path's BIT FOR BIT."""
     import pytest
     if not os.environ.get("RUN_SLOW"):
-        pytest.skip("minutes of XLA:CPU compile; RUN_SLOW=1 (TPU validates"
-                    " e64 end-to-end in the golden sweep)")
+        pytest.skip("minutes of XLA:CPU compile; RUN_SLOW=1 (chip_smoke.py"
+                    " validates e64 end-to-end on the GPU)")
     scene = read_input(os.path.join(TESTCASE_DIR, "b20.in"))
     ref = simulate(scene, n_steps=10, chunk=10, platform="cpu")
     e64 = simulate(scene, n_steps=10, chunk=10, precision="e64",

@@ -1,5 +1,4 @@
-"""simulate() on the mesh (VERDICT round-2 item 8: the precision x mesh x
-integrator matrix). The chunk scan rides shard_map — bodies on the
+"""simulate() on the mesh (the precision x mesh x integrator matrix). The chunk scan rides shard_map — bodies on the
 ordered ppermute ring (native dtypes / tf3) or force rows split with
 replicated state (e64) — with device-mass oscillation and the on_chunk
 checkpoint hook intact."""
@@ -10,9 +9,9 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.parallel import make_mesh
-from nbody_tpu.simulate import simulate
+from nbody import SimConfig, read_input
+from nbody.parallel import make_mesh
+from nbody.simulate import simulate
 
 TESTCASE_DIR = "/root/reference/testcases"
 
@@ -107,13 +106,12 @@ def test_simulate_mesh_e64_bit_identical_to_single_device():
 
 
 def test_simulate_mesh_f32_kahan(scene):
-    """Kahan compensation on the mesh f32 path (VERDICT r3 item 5):
-    (a) compensated runs are bit-identical across mesh shapes for the
+    """Kahan compensation on the mesh f32 path: (a) compensated runs are bit-identical across mesh shapes for the
     same tile (the compensation is per-body local state riding the same
     ordered-ring arithmetic); (b) against the f64 reference trajectory,
     the compensated mesh run tracks at least as well as the plain one
     and strictly better over a long-horizon drift window — the mesh twin
-    of the single-device study (results/F32_HORIZON.md)."""
+    of the single-device study (scripts/study_f32_horizon.py)."""
     steps, tile = 600, 5
     runs = [simulate(scene, n_steps=steps, chunk=300, precision="f32",
                      mesh=make_mesh({"body": b}), tile=tile,

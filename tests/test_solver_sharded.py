@@ -1,5 +1,5 @@
 """The graded solver on the mesh: bit-stability across mesh shapes and
-agreement with the single-device drivers (VERDICT round-1 item 3)."""
+agreement with the single-device drivers."""
 
 import dataclasses
 import os
@@ -7,13 +7,13 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.models.direct_sum import run_problems_12, run_problem_3
-from nbody_tpu.parallel import make_mesh
-from nbody_tpu.parallel.solver_sharded import (
+from nbody import SimConfig, read_input
+from nbody.models.direct_sum import run_problems_12, run_problem_3
+from nbody.parallel import make_mesh
+from nbody.parallel.solver_sharded import (
     run_problems_12_sharded, run_problem_3_sharded, solve_scene_sharded)
-from nbody_tpu.physics import oscillation_table
-from nbody_tpu.utils.padding import pad_scene
+from nbody.physics import oscillation_table
+from nbody.utils.padding import pad_scene
 
 TESTCASE_DIR = "/root/reference/testcases"
 

@@ -1,5 +1,4 @@
-"""The ANSWER-GRADE e64 softfloat solver on the mesh (VERDICT round-2
-item 2): byte-identical answers to the single-chip e64 path across mesh
+"""The ANSWER-GRADE e64 softfloat solver on the mesh: byte-identical answers to the single-chip e64 path across mesh
 shapes, BY CONSTRUCTION (the state rides body-replicated and only the
 O(n^2) force rows split over 'body'; the spec's serial per-row fold never
 re-associates — solver_sharded._p12_chunk_sharded_e64). The multi-chip
@@ -7,8 +6,7 @@ twin of the reference spreading the graded scenario over both its GPUs
 (hw5.cu:564-588).
 
 RUN_SLOW-gated: XLA:CPU takes minutes to compile the fused softfloat
-graphs (a CPU-backend pathology absent on TPU — tests/test_e64_solver.py
-header); the standing full-length validation is the TPU golden sweep.
+graphs (a CPU-backend pathology — tests/test_e64_solver.py header).
 """
 
 import dataclasses
@@ -17,10 +15,10 @@ import os
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, read_input
-from nbody_tpu.engine import solve_scene
-from nbody_tpu.io import format_output
-from nbody_tpu.parallel import make_mesh
+from nbody import SimConfig, read_input
+from nbody.engine import solve_scene
+from nbody.io import format_output
+from nbody.parallel import make_mesh
 
 TESTCASE_DIR = "/root/reference/testcases"
 
@@ -47,7 +45,7 @@ def tiny_scene():
 
 @slow
 def test_e64_mesh_byte_identical_to_single_chip(tiny_scene, monkeypatch):
-    # Pad to 8 bodies, not the 128 TPU bucket: the wall here is the
+    # Pad to 8 bodies, not the 128 bucket: the wall here is the
     # XLA:CPU softfloat COMPILE (scales with the padded shape; the 128
     # bucket never finished in >100 min, measured round 4), and padding
     # is semantics-exact (+0.0 force identity, test_padding.py), so the

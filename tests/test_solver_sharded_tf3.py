@@ -18,16 +18,16 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from nbody_tpu.ops import tfloat as tf
-from nbody_tpu.parallel.mesh import make_mesh
-from nbody_tpu.parallel.solver_sharded import ring_accel_ordered_tf3
+from nbody.ops import tfloat as tf
+from nbody.parallel.mesh import make_mesh
+from nbody.parallel.solver_sharded import ring_accel_ordered_tf3
 
 slow = pytest.mark.skipif(not os.environ.get("RUN_SLOW"),
                           reason="minutes of XLA:CPU compile; RUN_SLOW=1")
 
 
 def test_ring_tf3_matches_single_kernel_and_mesh_invariant():
-    from nbody_tpu.ops.forces import pairwise_accel_tf3
+    from nbody.ops.forces import pairwise_accel_tf3
 
     rng = np.random.default_rng(0)
     n, G, eps = 16, 6.674e-11, 1e-3
@@ -72,9 +72,9 @@ def test_ring_tf3_matches_single_kernel_and_mesh_invariant():
 def test_ddp_mesh_full_solve_matches_single_device():
     import dataclasses
 
-    from nbody_tpu import SimConfig
-    from nbody_tpu.engine import solve_scene
-    from nbody_tpu.io import Scene
+    from nbody import SimConfig
+    from nbody.engine import solve_scene
+    from nbody.io import Scene
 
     rng = np.random.RandomState(7)
     n = 32

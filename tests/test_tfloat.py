@@ -14,7 +14,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from nbody_tpu.ops import tfloat as tf
+from nbody.ops import tfloat as tf
 
 RNG = np.random.default_rng(42)
 
@@ -23,7 +23,7 @@ def _rand_vals(n, lo_exp=-7, hi_exp=7, rng=None):
     """Random signed magnitudes 10^[lo_exp, hi_exp].
 
     Default range is the tf3 HEALTHY WINDOW: XLA flushes f32 subnormals to
-    zero (measured, CPU and TPU), so a value keeps all three limbs only for
+    zero (measured on the CPU), so a value keeps all three limbs only for
     |x| >= ~2^-78 and an op result keeps full ~2^-65 relative precision
     only for |result| >= ~2^-56. The engine pins every force-path
     intermediate inside this window via the exact 2^k rescale + mass gauge
@@ -300,7 +300,7 @@ def test_tf3_force_blocked_matches_unblocked():
     including a tile size that does not divide n."""
     import jax
 
-    from nbody_tpu.ops.forces import pairwise_accel_tf3
+    from nbody.ops.forces import pairwise_accel_tf3
 
     rng = np.random.default_rng(21)
     n = 41

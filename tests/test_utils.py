@@ -5,12 +5,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from nbody_tpu.utils.checkpoint import (CheckpointPolicy, load_checkpoint,
+from nbody.utils.checkpoint import (CheckpointPolicy, load_checkpoint,
                                         save_checkpoint)
-from nbody_tpu.utils.profiling import PhaseTimers, pair_interactions
-from nbody_tpu.utils.rescale import compute_rescale, Rescale
-from nbody_tpu.io import read_input
-from nbody_tpu.ops.forces import pairwise_accel
+from nbody.utils.profiling import PhaseTimers, pair_interactions
+from nbody.utils.rescale import compute_rescale, Rescale
+from nbody.io import read_input
+from nbody.ops.forces import pairwise_accel
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -43,79 +43,6 @@ def test_phase_timers():
     assert "a" in rec["phases_s"] and rec["n"] == 5
     # step 0 performs no force evaluation: n_steps evaluations per sim
     assert pair_interactions(10, 1, 2) == 10 * 10 * 1 * 2
-
-
-def test_adaptive_chunker_fake_timer():
-    """A mis-calibrated prior must not risk watchdog kills: the chunker
-    re-sizes from the measured rate after the first steady-state chunk."""
-    from nbody_tpu.utils.chunking import AdaptiveChunker
-
-    clock = [0.0]
-
-    def fake_timer():
-        return clock[0]
-
-    # Prior says 1e-6 s/step (=> probe capped at 2000); reality is 100x
-    # slower: 1e-4 s/step.
-    ck = AdaptiveChunker(1e-6, 200000, timer=fake_timer)
-    assert ck.probe == 2000
-    # chunk 1: compile + run, hugely slow — must be ignored
-    assert ck.start() == 2000
-    clock[0] += 300.0
-    ck.finish(2000)
-    assert ck.chunk == 2000
-    # chunk 2: steady state at 1e-4 s/step -> 0.2 s for 2000 steps
-    assert ck.start() == 2000
-    clock[0] += 0.2
-    ck.finish(2000)
-    # measured rate 1e4 steps/s -> TARGET 60 s -> 6e5 steps -> probe<<8
-    # = 512000, then halved until <= MAX_SEC (180 s -> 1.8e6 steps ok),
-    # capped at n_steps
-    assert ck.chunk == min(2000 << 8, 200000)
-    assert ck.measured_rate == pytest.approx(1e4)
-
-    # Opposite mis-calibration: prior too optimistic, device 100x slower
-    # than TARGET/probe: chunk must stay at the probe (never grow past
-    # MAX_SEC at the measured rate).
-    ck2 = AdaptiveChunker(1e-6, 200000, timer=fake_timer)
-    ck2.start(); clock[0] += 500.0; ck2.finish(2000)
-    ck2.start(); clock[0] += 400.0; ck2.finish(2000)  # 5 steps/s
-    assert ck2.chunk == ck2.probe  # 2000 steps @ 5/s = 400 s > prior, no growth
-
-
-def test_adaptive_chunker_midrun_slowdown():
-    """A mid-run slowdown (the documented 4.4x compile-service swing) must
-    shrink the chunk before it drifts past MAX_SEC — and the chunk must
-    grow back, but only to already-used sizes, once the rate recovers."""
-    from nbody_tpu.utils.chunking import AdaptiveChunker
-
-    clock = [0.0]
-    ck = AdaptiveChunker(1e-6, 10_000_000, timer=lambda: clock[0])
-    assert ck.probe == 2000
-    ck.start(); clock[0] += 300.0; ck.finish(2000)       # compile chunk
-    ck.start(); clock[0] += 0.2; ck.finish(2000)         # healthy: 1e4 st/s
-    healthy_chunk = ck.chunk
-    assert healthy_chunk == 2000 << 8                    # 512000 @ ~51 s
-    # the service degrades 4.4x: 512000 steps now take ~225 s (> MAX 180)
-    ck.start(); clock[0] += healthy_chunk / (1e4 / 4.4); ck.finish(healthy_chunk)
-    assert ck.chunk < healthy_chunk                      # shrank
-    assert ck.chunk / ck.measured_rate <= AdaptiveChunker.MAX_SEC
-    shrunk = ck.chunk
-    # still degraded: stays put (projected under MAX_SEC)
-    ck.start(); clock[0] += shrunk / (1e4 / 4.4); ck.finish(shrunk)
-    assert ck.chunk == shrunk
-    # recovery: grows back, but never past the peak already compiled
-    ck.start(); clock[0] += ck.chunk / 1e4; ck.finish(ck.chunk)
-    assert shrunk < ck.chunk <= healthy_chunk
-
-
-def test_adaptive_chunker_zero_progress():
-    from nbody_tpu.utils.chunking import AdaptiveChunker
-    clock = [0.0]
-    ck = AdaptiveChunker(1e-6, 1000, floor=1, timer=lambda: clock[0])
-    ck.start(); clock[0] += 1.0; ck.finish(5)
-    ck.start(); clock[0] += 1.0; ck.finish(0)   # early-exit chunk: no steps
-    assert ck.chunk >= 1  # no crash, sane size
 
 
 def test_rescale_is_exact():
